@@ -1,4 +1,4 @@
-"""The reference's canonical worked example, TPU-native: synthetic sine-wave
+"""The reference's canonical worked example: synthetic sine-wave
 regression with a derivative constraint at the edge (the sphinx-docs demo of
 markchil/gptools — SURVEY.md section 4 'docs-as-tests'), done three ways:
 MAP, NUTS, and fully-Bayesian prediction.

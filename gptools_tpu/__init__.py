@@ -1,8 +1,8 @@
-"""gptools-tpu: a TPU-native probabilistic-programming inference engine for
+"""gptools-tpu: a GPU probabilistic-programming inference engine for
 Gaussian-process models with derivative and linear-transform (line-integral)
 observations.
 
-This is a from-scratch JAX/XLA/Pallas/pjit rebuild of the capability set of
+This is a from-scratch JAX/XLA rebuild of the capability set of
 the reference library ``markchil/gptools`` (see SURVEY.md at the repo root):
 
 - kernel zoo: squared exponential, Matern (half-integer and general nu),
@@ -24,7 +24,7 @@ Design stance (vs the reference, cited per SURVEY.md section):
   ``gptools/kernel/squared_exponential.py``) is replaced wholesale by JAX
   autodiff towers over scalar kernel functions (`gptools_tpu.ops.derivs`);
 - numpy tiling + LAPACK (``gptools/core.py :: compute_Kij`` +
-  ``scipy.linalg.cholesky``) becomes batched XLA/Pallas covariance assembly
+  ``scipy.linalg.cholesky``) becomes batched XLA covariance assembly
   plus batched Cholesky (`gptools_tpu.ops.assemble`, `gptools_tpu.ops.evidence`);
 - emcee ensemble sampling / multiprocessing pools
   (``gptools/core.py :: sample_hyperparameter_posterior``) become vectorized
@@ -35,10 +35,10 @@ Design stance (vs the reference, cited per SURVEY.md section):
 import os as _os
 
 if _os.environ.get("GPTOOLS_XLA_CACHE", "").lower() in ("1", "true", "yes"):
-    # Opt-in persistent XLA compilation cache: at engine speeds the one-time
-    # compile wall dominates end-to-end latency; the cache amortizes it
-    # across processes (see utils/xla_cache.py for the r1-crash history and
-    # the r5 re-validation). Import-time so it precedes the first compile.
+    # Opt-in persistent XLA compilation cache: the one-time compile is a
+    # large part of a short run's wall; the cache amortizes it across
+    # processes (utils/xla_cache.py). Import-time so it precedes the first
+    # compile.
     from gptools_tpu.utils.xla_cache import enable as _enable_xla_cache
 
     _enable_xla_cache()

@@ -1,7 +1,7 @@
 """Inference layer: MAP, HMC, NUTS, SMC, ADVI — all driving the single
 differentiable ``log_posterior_u`` of `gptools_tpu.models.gp.GPModel`.
 
-TPU-native counterpart of the reference's inference layer (SURVEY.md
+Counterpart of the reference's inference layer (SURVEY.md
 sections 2.3 and 3): ``optimize_hyperparameters`` (multiprocessing multi-start
 SLSQP) becomes vmapped L-BFGS; ``sample_hyperparameter_posterior`` (emcee
 ensemble walkers / parallel tempering over process pools) becomes vectorized
@@ -52,7 +52,7 @@ def run_sampler(
     {'nuts', 'hmc', 'chees', 'pt', 'smc', 'advi', 'smc+nuts', 'smc+chees'}``
     ('pt' is true replica-exchange HMC over a temperature ladder, the
     PTSampler counterpart — see `gptools_tpu.infer.pt`)
-    ('smc+chees' is the fastest on TPU — SMC warm start + whitened
+    ('smc+chees' is the fastest configuration — SMC warm start + whitened
     ChEES-HMC). Returns a `SampleResult` whose ``thetas`` are
     (chains, samples, P) constrained hyperparameters.
     """

@@ -1,6 +1,6 @@
 """Multi-start MAP estimation, vectorized on-chip.
 
-TPU-native counterpart of ``gptools/core.py ::
+Counterpart of ``gptools/core.py ::
 GaussianProcess.optimize_hyperparameters`` (SURVEY.md section 3.1): the
 reference drew ``random_starts`` points from the hyperprior and fanned
 scipy SLSQP over a ``multiprocessing.Pool``; here every start runs the SAME

@@ -1,6 +1,6 @@
 """SMC-initialized massively-parallel NUTS: the flagship inference pipeline.
 
-Rationale (TPU-first): a single chip runs thousands of chains for nearly the
+Rationale: one accelerator runs thousands of chains for nearly the
 price of one, so the optimal regime is MANY SHORT chains — but short chains
 only work if they start in (and correctly across) the posterior's modes.
 Adaptive tempered SMC (`gptools_tpu.infer.smc`) provides exactly that: its
@@ -31,9 +31,12 @@ from gptools_tpu.infer.hmc import SampleResult
 
 __all__ = ["smc_then_nuts", "smc_then_chees"]
 
+# the whitening products run at full f32 precision (no TF32 on the GPU)
+_HI = jax.lax.Precision.HIGHEST
 
-def _stable_fns(model, data, mesh=None, mesh_axis=None):
-    """Per-(model, data, mesh) cache of the density closures handed to the
+
+def _stable_fns(model, data):
+    """Per-(model, data) cache of the density closures handed to the
     ChEES sampler.
 
     The sampler's compiled-program cache (`chees._build_programs`) is keyed
@@ -44,19 +47,15 @@ def _stable_fns(model, data, mesh=None, mesh_axis=None):
     the jitted programs; see BASELINE.md). Whitening moments are NOT closed
     over — they arrive through the sampler's ``logp_params`` operand.
 
-    ``mesh``/``mesh_axis`` are closed over (and part of the cache key): the
-    batched density's fused-Pallas evidence dispatches through `shard_map`
-    over the chain axis when a mesh is given (`GPModel.log_marginal_batch`),
-    so a sharded and an unsharded run of the same (model, data) must trace
-    DIFFERENT density functions — sharing one closure would let the first
-    run's trace (with or without the shard_map) be silently reused for the
-    other.
+    A sharded and an unsharded run share the closures: the jitted programs
+    specialize on their inputs' shardings, and GSPMD partitions the batched
+    density over the chain axis.
 
     The cache entry holds ``data`` strongly, so the ``id(data)`` key cannot
     be reused by a different object while the entry lives.
     """
     cache = model.__dict__.setdefault("_pipeline_fn_cache", {})
-    cache_key = (id(data), mesh, mesh_axis)
+    cache_key = id(data)
     entry = cache.get(cache_key)
     if entry is not None and entry["data"] is data:
         return entry
@@ -66,7 +65,9 @@ def _stable_fns(model, data, mesh=None, mesh_axis=None):
 
     def logp_w(v, params):
         mu, C = params
-        return model.log_posterior_u(mu + C @ v, data)
+        return model.log_posterior_u(
+            mu + jnp.matmul(C, v, precision=_HI), data
+        )
 
     def logp_u(u, params):
         del params
@@ -78,14 +79,12 @@ def _stable_fns(model, data, mesh=None, mesh_axis=None):
         def logp_w_batched(vs, params):
             mu, C = params
             return model.log_posterior_u_batch(
-                vs @ C.T + mu, data, mesh=mesh, mesh_axis=mesh_axis
+                jnp.matmul(vs, C.T, precision=_HI) + mu, data
             )
 
         def logp_u_batched(us, params):
             del params
-            return model.log_posterior_u_batch(
-                us, data, mesh=mesh, mesh_axis=mesh_axis
-            )
+            return model.log_posterior_u_batch(us, data)
 
     entry = {
         "data": data,
@@ -109,7 +108,7 @@ def _whiten_init(C, mu, u0):
 @jax.jit
 def _unwhiten_samples(C, mu, vs):
     """u = mu + C v over a (chains, samples, P) stack."""
-    return mu + jnp.einsum("ij,csj->csi", C, vs)
+    return mu + jnp.einsum("ij,csj->csi", C, vs, precision=_HI)
 
 
 def _embed2(model):
@@ -182,11 +181,13 @@ def smc_then_nuts(
     # stable per-(model, data) closures + whitening moments as operands:
     # repeated calls reuse the compiled NUTS window programs
     # (hmc._window_program)
-    fns = _stable_fns(model, data, mesh=mesh, mesh_axis=mesh_axis)
+    fns = _stable_fns(model, data)
     if whiten:
         mu = jnp.mean(particles, axis=0)
         P = particles.shape[1]
-        cov = jnp.cov(particles.T) + 1e-8 * jnp.eye(P, dtype=particles.dtype)
+        with jax.default_matmul_precision("highest"):
+            cov = jnp.cov(particles.T)
+        cov = cov + 1e-8 * jnp.eye(P, dtype=particles.dtype)
         C = jnp.linalg.cholesky(cov)
 
         v0 = _whiten_init(C, mu, u0)
@@ -249,7 +250,7 @@ def smc_then_chees(
     mesh=None,
     mesh_axis: Optional[str] = None,
 ) -> SampleResult:
-    """SMC warm start + ChEES-HMC chains: the fastest configuration on TPU
+    """SMC warm start + ChEES-HMC chains: the fastest configuration
     (uniform trajectory lengths -> zero masked-lane waste; see
     `gptools_tpu.infer.chees`).
 
@@ -284,7 +285,7 @@ def smc_then_chees(
     ck.update(chees_kwargs or {})
     # Keys the _chees.sample calls below pass EXPLICITLY must be popped out
     # of ck, or supplying them via chees_kwargs raises "got multiple values";
-    # popping also keeps prewarm and the real call consistent.
+    # popping also keeps the explicit arguments and ck consistent.
     target_accept = ck.pop("target_accept", target_accept)
     max_steps = ck.pop("max_steps", max_steps)
     for k in ("logp_batched", "logp_params"):
@@ -294,32 +295,7 @@ def smc_then_chees(
                 "closures and whitening moments are wired internally); it "
                 "cannot be overridden here"
             )
-    fns = _stable_fns(model, data, mesh=mesh, mesh_axis=mesh_axis)
-    # Overlap the sampler's XLA compiles with the whole SMC stage: the
-    # (init, chunk) programs depend only on shapes/config known HERE, not
-    # on SMC's output (run-specific whitening moments are runtime
-    # operands). First pipeline call on a (model, data): both big compiles
-    # proceed in background threads while SMC compiles + runs on this one.
-    warm_join = None
-    if mesh is None and whiten:
-        P = model.num_free_params
-        dtype = jnp.zeros((), float).dtype  # matches default particle dtype
-        warm_join = _chees.prewarm(
-            fns["logp_w"],
-            num_chains,
-            P,
-            dtype,
-            logp_batched=fns["logp_w_batched"],
-            params_struct=(
-                jax.ShapeDtypeStruct((P,), dtype),
-                jax.ShapeDtypeStruct((P, P), dtype),
-            ),
-            target_accept=target_accept,
-            max_steps=max_steps,
-            chunk=ck.get("chunk", 25),
-            adam_lr=ck.get("adam_lr", 0.025),
-            cost_normalize=ck["cost_normalize"],
-        )
+    fns = _stable_fns(model, data)
     k_smc, k_res, k_run = jax.random.split(key, 3)
     smc_res = _smc.sample(
         model, data, k_smc, num_particles=num_particles,
@@ -337,7 +313,9 @@ def smc_then_chees(
     if whiten:
         mu = jnp.mean(particles, axis=0)
         P = particles.shape[1]
-        cov = jnp.cov(particles.T) + 1e-8 * jnp.eye(P, dtype=particles.dtype)
+        with jax.default_matmul_precision("highest"):
+            cov = jnp.cov(particles.T)
+        cov = cov + 1e-8 * jnp.eye(P, dtype=particles.dtype)
         C = jnp.linalg.cholesky(cov)
 
         v0 = _whiten_init(C, mu, u0)
@@ -345,8 +323,6 @@ def smc_then_chees(
         # (replicated output), making the mesh a no-op for the sampler stage.
         if sh_chain is not None:
             v0 = jax.device_put(v0, sh_chain)
-        if warm_join is not None:
-            warm_join()  # never compile concurrently with the warm threads
         res = _chees.sample(
             fns["logp_w"],
             v0,
@@ -374,7 +350,7 @@ def smc_then_chees(
             num_samples=num_samples,
             target_accept=target_accept,
             # pop explicitly-passed keys so chees_kwargs overrides don't
-            # raise "got multiple values" (ADVICE r4 — same class as the
+            # raise "got multiple values" (same class as the
             # target_accept/max_steps/eps0 pops above); defaults match the
             # previous behavior (chees.sample's own eps0 default here)
             eps0=ck.pop("eps0", 0.1),

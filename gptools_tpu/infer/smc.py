@@ -128,8 +128,8 @@ def smc_round(
     """One reweight -> resample -> mutate round (jitted by the driver).
 
     ``log_like_batched``: optional (N, P) -> (N,) likelihood for the
-    mutation sweep (`pt.model_splits_batched`) — the chains-minor / fused-
-    Pallas evidence instead of the vmapped per-particle scalar path.
+    mutation sweep (`pt.model_splits_batched`) — the chains-minor
+    evidence instead of the vmapped per-particle scalar path.
     """
     n, p = state.u.shape
     dtype = state.u.dtype
@@ -151,7 +151,9 @@ def smc_round(
     # preconditioner from the (resampled, hence equal-weight) ensemble
     mean = jnp.mean(u, axis=0)
     centered = u - mean
-    cov = centered.T @ centered / n + 1e-8 * jnp.eye(p, dtype=dtype)
+    cov = jnp.matmul(
+        centered.T, centered, precision=jax.lax.Precision.HIGHEST
+    ) / n + 1e-8 * jnp.eye(p, dtype=dtype)
     chol = jnp.linalg.cholesky(cov)
     step = proposal_scale * 2.38 / jnp.sqrt(jnp.asarray(p, dtype))
 
@@ -159,7 +161,9 @@ def smc_round(
         u, log_like, log_prior, n_acc = carry
         k1, k2 = jax.random.split(k)
         z = jax.random.normal(k1, u.shape, dtype)
-        prop = u + step * z @ chol.T
+        prop = u + step * jnp.matmul(
+            z, chol.T, precision=jax.lax.Precision.HIGHEST
+        )
         if log_like_batched is not None:
             ll_p = log_like_batched(prop)
         else:
@@ -218,9 +222,9 @@ def sample(
 
     embed = model.theta_of_u
     log_like_fn, log_prior_fn = model_splits(model, data)
-    # batched mutation sweep (chains-minor / fused-Pallas evidence) when the
-    # model supports it; mesh closed over for the sharded shard_map dispatch
-    log_like_b = model_splits_batched(model, data, mesh=mesh, mesh_axis=mesh_axis)
+    # batched mutation sweep (chains-minor evidence) when the model
+    # supports it
+    log_like_b = model_splits_batched(model, data)
 
     k_init, key = jax.random.split(key)
     thetas0 = model.hyperprior.sample(k_init, (num_particles,))

@@ -1,10 +1,10 @@
 """Observation container: derivative orders + linear-transform observations.
 
-TPU-native counterpart of the data-management half of
+Counterpart of the data-management half of
 ``gptools/core.py :: GaussianProcess`` (``add_data``, ``X``, ``y``, ``err_y``,
 ``n``, ``T`` attributes — SURVEY.md section 1, architectural facts 1-2).
 
-Canonical form (the key TPU-first design decision): every observation is a
+Canonical form (the key design decision): every observation is a
 linear functional of latent function/derivative values,
 
     y = T f,    f_q = d^{n_q} f(X_q),   q = 1..Q  (latent evaluation points)
@@ -13,7 +13,7 @@ Direct observations are identity rows of ``T``; line-integral / quadrature
 observations (``add_data(..., T=...)`` in the reference) are dense rows. When
 no transformed observations exist ``T`` is ``None`` and the fast path
 ``K_obs = K_ff`` applies; otherwise ``K_obs = T K_ff T^T`` — two matmuls that
-land straight on the MXU, unifying what the reference special-cased across
+land straight on the matrix units, unifying what the reference special-cased across
 its likelihood and prediction paths.
 
 The builder runs host-side (numpy); `Dataset` is a frozen pytree with static

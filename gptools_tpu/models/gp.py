@@ -1,6 +1,6 @@
 """GP core: model spec, log evidence, prediction, and the user-facing wrapper.
 
-TPU-native counterpart of ``gptools/core.py :: GaussianProcess`` (SURVEY.md
+Counterpart of ``gptools/core.py :: GaussianProcess`` (SURVEY.md
 sections 1-3). The architecture splits the reference's single mutable class
 into:
 
@@ -37,26 +37,9 @@ from gptools_tpu.utils import bijectors as bij
 
 __all__ = ["GPModel", "GaussianProcess", "Prediction"]
 
-# cov_backend="auto" resolution, justified by on-chip measurement (VERDICT.md
-# r1 item 2): scripts/bench_cov.py on TPU v5e, 2026-08-18 (table in
-# BASELINE.md) — the fused-XLA builder beats the grid-tiled Pallas twin on
-# BOTH the raw chain-batched build (4.2 vs 8.7 ms at the bench's
-# (12288 chains, N=27); 8.9 vs 14.8 ms at (256, 1024)) and the full
-# evidence gradient, at every measured shape. The build is transcendental-
-# throughput-bound on the VPU (tanh/exp/rsqrt), which XLA already fuses into
-# one elementwise pass over the same padded (8,128) tiles Pallas would touch,
-# so Pallas has no bandwidth or fusion left to win back. Re-run the script
-# and update this constant if the kernels or hardware change.
-_MEASURED_AUTO_BACKEND = "fused"
-
-# evidence_backend="auto" resolution for the BATCHED sampler hot path
-# (log_marginal_batch): "fused_pallas" routes the whole evidence
-# value-and-gradient through the single VMEM-resident Pallas kernel
-# (ops/evidence_pallas.py) on a single TPU device; anything else uses the
-# chains-minor XLA path (ops/evidence.py :: loglik_b). Set from on-chip
-# measurement (scripts/bench_soa.py) like _MEASURED_AUTO_BACKEND above.
-_MEASURED_EVIDENCE_AUTO_TPU = "fused_pallas"
-
+# Every f32 matrix product runs at full precision: on the GPU the default
+# precision may round the operands to TF32 (about three decimal digits).
+_HI = jax.lax.Precision.HIGHEST
 
 class Prediction(NamedTuple):
     """Posterior predictive summary (reference ``predict`` return tuple)."""
@@ -91,20 +74,17 @@ class GPModel:
         mean: Optional[MeanFunction] = None,
         diag_factor: float = 1e2,
         solve_dtype=None,
-        cov_backend: str = "auto",
-        evidence_backend: str = "auto",
+        cov_backend: str = "fused",
     ):
         self.kernel = kernel
         self.noise_kernel = noise_kernel
         self.mean = mean
         self.diag_factor = float(diag_factor)
         self.solve_dtype = solve_dtype
-        if cov_backend not in ("auto", "generic", "fused", "pallas"):
+        if cov_backend not in ("auto", "generic", "fused"):
             raise ValueError(f"unknown cov_backend {cov_backend!r}")
-        self.cov_backend = cov_backend
-        if evidence_backend not in ("auto", "xla", "fused_pallas"):
-            raise ValueError(f"unknown evidence_backend {evidence_backend!r}")
-        self.evidence_backend = evidence_backend
+        # "auto" is the older name of "fused"
+        self.cov_backend = "generic" if cov_backend == "generic" else "fused"
 
         sizes = [kernel.num_params]
         sizes.append(noise_kernel.num_params if noise_kernel else 0)
@@ -199,9 +179,9 @@ class GPModel:
         sampler/optimizer can reach: the (1,1) covariance block diverges at
         coincident points for nu <= 1 (no mean-square derivative), so a prior
         or bound that admits nu <= 1 makes the likelihood silently -inf/NaN
-        mid-run. Hard-warns once per model on static metadata (VERDICT r2
-        item 8; a warning rather than an error because direct evidence
-        evaluation at a safe nu remains legitimate).
+        mid-run. Hard-warns once per model on static metadata (a warning
+        rather than an error because direct evidence evaluation at a safe nu
+        remains legitimate).
         """
         from gptools_tpu.ops.kernels import MaternGeneralKernel
 
@@ -237,17 +217,14 @@ class GPModel:
         """K over the latent grid: kernel (+ noise kernel if requested).
 
         The smooth part dispatches to the fused flagship builders
-        (`gptools_tpu.ops.fused`, single-pass shared-subexpression formulas;
-        optionally Pallas forward) when the kernel/data support them —
-        this is the evidence hot path the samplers hammer.
+        (`gptools_tpu.ops.fused`, single-pass shared-subexpression formulas)
+        when the kernel/data support them (``cov_backend="fused"``, the
+        default); "generic" forces the autodiff assembly.
         """
         from gptools_tpu.ops import fused
 
         self._check_matern_nu_support(data)
-        backend = self.cov_backend
-        if backend == "auto":
-            backend = _MEASURED_AUTO_BACKEND
-        if backend in ("fused", "pallas") and fused.fused_supported(
+        if self.cov_backend != "generic" and fused.fused_supported(
             self.kernel, data.multi_indices, data.num_dim
         ):
             Kff = fused.flagship_cov(
@@ -256,7 +233,6 @@ class GPModel:
                 data.Xf,
                 data.nid,
                 data.multi_indices,
-                backend=backend,
             )
             # generic path still supplies any delta terms inside the kernel
             if self.kernel.delta_terms():
@@ -307,14 +283,22 @@ class GPModel:
         Kff = self._latent_cov(theta_full, data, include_noise=True)
         mu = self._latent_mean(theta_full, data)
         if data.T is not None:
-            Kobs = data.T @ Kff @ data.T.T
-            mu_obs = data.T @ mu
+            Kobs = jnp.matmul(
+                jnp.matmul(data.T, Kff, precision=_HI), data.T.T, precision=_HI
+            )
+            mu_obs = jnp.matmul(data.T, mu, precision=_HI)
         else:
             Kobs = Kff
             mu_obs = mu
         Kobs = Kobs + jnp.diag(data.err_y * data.err_y)
         r = data.y - mu_obs
         return Kobs, r
+
+    @staticmethod
+    def _noise_floor(data: Dataset, dtype):
+        """The smallest observation-noise variance on K's diagonal: the
+        evidence's jitter only tops the diagonal up past it."""
+        return jnp.min(data.err_y * data.err_y).astype(dtype)
 
     def compute_K_L_alpha_ll(
         self, theta_full: jax.Array, data: Dataset
@@ -326,7 +310,9 @@ class GPModel:
         if self.solve_dtype is not None:
             Kobs = Kobs.astype(self.solve_dtype)
             r = r.astype(self.solve_dtype)
-        return evidence.gaussian_loglik(Kobs, r, self.diag_factor)
+        return evidence.gaussian_loglik(
+            Kobs, r, self.diag_factor, self._noise_floor(data, Kobs.dtype)
+        )
 
     def log_marginal(self, theta_full: jax.Array, data: Dataset) -> jax.Array:
         # analytic-VJP scalar path: same value as compute_K_L_alpha_ll().ll,
@@ -337,7 +323,9 @@ class GPModel:
         if self.solve_dtype is not None:
             Kobs = Kobs.astype(self.solve_dtype)
             r = r.astype(self.solve_dtype)
-        return evidence.loglik(Kobs, r, self.diag_factor)
+        return evidence.loglik(
+            Kobs, r, self.diag_factor, self._noise_floor(data, Kobs.dtype)
+        )
 
     def log_posterior(self, theta_full: jax.Array, data: Dataset) -> jax.Array:
         lp = self.log_prior(theta_full)
@@ -354,184 +342,16 @@ class GPModel:
             self.kernel, data.multi_indices, data.num_dim
         ) and not self.kernel.delta_terms()
 
-    def _pallas_evidence_fn(self, data: Dataset):
-        """Resolve the batched evidence to the single fused Pallas kernel
-        (ops/evidence_pallas.py) when eligible, else None (XLA path). The
-        returned callable takes the FULL theta rows (P, C).
-
-        Eligibility (VERDICT r4 missing #2 widened): fused-classifiable
-        kernel (SE / Gibbs-tanh / Matern-5/2, optionally input-warped by
-        BetaWarp or LinearWarp), ANY mean function (its per-point values
-        enter the kernel as an aux input with dll/dmu = alpha flowing back
-        through the mean's own autodiff), an optional DiagonalNoiseKernel
-        (purely diagonal — unique (x, order) rows), no observation
-        transform T, small N, and concrete data (the kernel bakes X, y,
-        err^2 as constants — the same per-(model, data) program-caching
-        contract as the density closures). Multi-device runs are supported
-        too: `log_marginal_batch(..., mesh=...)` wraps the returned call in
-        `shard_map` over the chain axis (the kernel is block-local, blocks
-        never communicate), so no GSPMD partitioning rules are needed for
-        the opaque kernel. The r4 `jax.device_count() == 1` gate is gone —
-        it disabled the 22.7x kernel even for unsharded models on
-        multi-device hosts (VERDICT r4 weak #1 / missing #1).
-        """
-        backend = self.evidence_backend
-        if backend == "auto":
-            if jax.default_backend() == "tpu":
-                backend = _MEASURED_EVIDENCE_AUTO_TPU
-            else:
-                backend = "xla"
-        if backend != "fused_pallas":
-            return None
-        if data.T is not None or self.solve_dtype is not None:
-            return None
-        cache = self.__dict__.setdefault("_pallas_evidence_cache", {})
-        hit = cache.get(id(data))
-        if hit is not None and hit[0] is data:
-            return hit[1]
-        from gptools_tpu.ops import assemble, evidence_pallas, fused
-        from gptools_tpu.ops.kernels import DiagonalNoiseKernel
-
-        if data.num_dim != 1:
-            return None
-        if not set(tuple(m) for m in data.multi_indices) <= {(0,), (1,)}:
-            return None
-        cls = fused.classify_flagship(self.kernel)
-        if cls is None or self.kernel.delta_terms():
-            return None
-        kind, n_base, input_warp = cls
-        # every array baked into the kernel as a constant must be concrete;
-        # abstract data under jit falls back to the XLA path (ADVICE r4 —
-        # checking Xf alone left np.asarray(y/err_y/nid) to raise
-        # TracerArrayConversionError)
-        if any(
-            isinstance(a, jax.core.Tracer)
-            for a in (data.Xf, data.nid, data.y, data.err_y)
-        ):
-            return None
-        Xnp = np.asarray(data.Xf).reshape(-1)
-        n = Xnp.shape[0]
-        if not evidence_pallas.supported(kind, n):
-            return None
-        ids = np.asarray(
-            fused._order_ids(np.asarray(data.nid), data.multi_indices)
-        )
-
-        # theta-dependent diagonal noise: a single DiagonalNoiseKernel whose
-        # delta contribution is PURELY diagonal — i.e. no two observations
-        # share (x, derivative order); duplicated rows would couple
-        # off-diagonally (assemble.delta_matrix semantics) and fall back.
-        has_noise = self.noise_kernel is not None
-        noise_mask = None
-        if has_noise:
-            nk = self.noise_kernel
-            if type(nk) is not DiagonalNoiseKernel:
-                return None
-            rows = list(zip(Xnp.tolist(), ids.tolist()))
-            if len(set(rows)) != n:
-                return None
-            mis = tuple(tuple(m) for m in data.multi_indices)
-            if nk.n_match is None:
-                noise_mask = np.ones(n)
-            elif nk.n_match in mis:
-                noise_mask = (
-                    np.asarray(data.nid) == mis.index(nk.n_match)
-                ).astype(float)
-            else:
-                has_noise = False  # no observation of the matching order
-        has_mean = self.mean is not None
-        warped = input_warp is not None
-        slope_present = bool((ids == 1).any())
-
-        g = evidence_pallas.make_loglik_theta(
-            kind,
-            Xnp,
-            ids,
-            np.asarray(data.y),
-            np.asarray(data.err_y) ** 2,
-            self.diag_factor,
-            # explicit "fused_pallas" off-TPU (tests) runs interpreted
-            interpret=jax.default_backend() != "tpu",
-            has_mean=has_mean,
-            has_noise=has_noise,
-            warped=warped,
-        )
-        if not g.vag.aux_names:
-            fn = g
-        else:
-            # close over the aux computations — plain XLA ops whose VJPs
-            # compose with the kernel's analytic gradients (mean autodiff,
-            # betainc quadrature for BetaWarp, the noise square)
-            k_total = self.kernel.num_params
-            mean = self.mean
-            mis_t = data.multi_indices
-            Xf = data.Xf
-            nid_j = data.nid
-            m_off, m_size = self._offsets[2], self._sizes[2]
-            n_off = self._offsets[1]
-            mask_col = (
-                jnp.asarray(noise_mask)[:, None] if has_noise else None
-            )
-
-            def fn(thetaT):
-                aux = {}
-                if has_mean:
-                    th_m = thetaT[m_off : m_off + m_size]
-                    aux["mu"] = jax.vmap(
-                        lambda t: assemble.mean_vector(
-                            mean, t, Xf, nid_j, mis_t
-                        ),
-                        in_axes=1,
-                        out_axes=1,
-                    )(th_m)
-                if has_noise:
-                    sn = thetaT[n_off]
-                    aux["nd"] = (sn * sn)[None, :] * mask_col.astype(
-                        thetaT.dtype
-                    )
-                if warped:
-                    th_w = thetaT[n_base:k_total]
-                    w, wp = fused.warp_coords(
-                        input_warp,
-                        jnp.asarray(Xnp, thetaT.dtype),
-                        th_w,
-                        slope_present,
-                        True,
-                    )
-                    aux["w"] = w
-                    if slope_present:
-                        aux["wp"] = wp
-                return g(thetaT[:n_base], aux)
-
-        if len(cache) > 8:
-            cache.clear()
-        cache[id(data)] = (data, fn)
-        return fn
-
-    def log_marginal_batch(
-        self,
-        thetas: jax.Array,
-        data: Dataset,
-        mesh=None,
-        mesh_axis: Optional[str] = None,
-    ) -> jax.Array:
+    def log_marginal_batch(self, thetas: jax.Array, data: Dataset) -> jax.Array:
         """Batched log marginal likelihood: thetas (C, P) -> (C,).
 
         Identical values/gradients to ``vmap(log_marginal)`` but built
         chains-minor: the covariance, factorization, solves, and the analytic
-        VJP all keep the chain axis minormost, so no (N, N) tile padding is
-        paid per chain (ops/evidence.py :: loglik_b). Falls back to the
-        vmapped per-chain path for kernels/data the fused builders don't
-        cover.
-
-        ``mesh``: optional `jax.sharding.Mesh`. When the chain axis is laid
-        out over a mesh (BASELINE config 5), the fused Pallas evidence kernel
-        is invoked per shard via `shard_map` over ``mesh_axis`` — the kernel
-        computes independent 1024-chain blocks, so sharding the chain axis
-        needs no cross-device communication at all. The XLA path ignores
-        ``mesh`` (GSPMD partitions it natively). Callers must pass the SAME
-        mesh the chain axis is actually sharded over (the samplers thread it
-        through `infer.pipeline._stable_fns`).
+        VJP all keep the chain axis minormost, so every step of the loops is
+        a contiguous vector op over chains (ops/evidence.py :: loglik_b).
+        Falls back to the vmapped per-chain path for kernels/data the fused
+        builders don't cover. Under a chain-sharded input, GSPMD partitions
+        it over the mesh like any other jitted XLA computation.
         """
         from gptools_tpu.ops import fused
 
@@ -539,20 +359,6 @@ class GPModel:
             return jax.vmap(lambda t: self.log_marginal(t, data))(thetas)
         self._check_matern_nu_support(data)
         thetaT = thetas.T  # (P, C) full rows; the kernel slice is a prefix
-        ev_fn = self._pallas_evidence_fn(data)
-        if ev_fn is not None:
-            if mesh is not None:
-                from jax.sharding import PartitionSpec
-
-                axis = mesh_axis or mesh.axis_names[0]
-                return jax.shard_map(
-                    ev_fn,
-                    mesh=mesh,
-                    in_specs=PartitionSpec(None, axis),
-                    out_specs=PartitionSpec(axis),
-                    check_vma=False,  # custom_vjp body; vma-check unsupported
-                )(thetaT)
-            return ev_fn(thetaT)
         thetaT_k = self._theta_k(thetaT)  # (Pk, C) slice of (P, C)
         Kff = fused.flagship_cov_soa(
             self.kernel, thetaT_k, data.Xf, data.nid, data.multi_indices
@@ -581,9 +387,10 @@ class GPModel:
             )  # broadcasts over chains
         if data.T is not None:
             Kobs = jnp.einsum(
-                "mi,ijc,nj->mnc", data.T, Kff, data.T, optimize=True
+                "mi,ijc,nj->mnc", data.T, Kff, data.T, optimize=True,
+                precision=_HI,
             )
-            mu_obs = data.T @ mu
+            mu_obs = jnp.matmul(data.T, mu, precision=_HI)
         else:
             Kobs = Kff
             mu_obs = mu
@@ -594,36 +401,22 @@ class GPModel:
             Kobs = Kobs.astype(self.solve_dtype)
             r = r.astype(self.solve_dtype)
         r = jnp.broadcast_to(r, (Kobs.shape[0], Kobs.shape[-1]))
-        return evidence.loglik_b(Kobs, r, self.diag_factor)
+        return evidence.loglik_b(
+            Kobs, r, self.diag_factor, self._noise_floor(data, Kobs.dtype)
+        )
 
-    def log_posterior_batch(
-        self,
-        thetas: jax.Array,
-        data: Dataset,
-        mesh=None,
-        mesh_axis: Optional[str] = None,
-    ) -> jax.Array:
+    def log_posterior_batch(self, thetas: jax.Array, data: Dataset) -> jax.Array:
         lp = jax.vmap(self.log_prior)(thetas)
         ll = jnp.where(
-            jnp.isfinite(lp),
-            self.log_marginal_batch(thetas, data, mesh=mesh, mesh_axis=mesh_axis),
-            0.0,
+            jnp.isfinite(lp), self.log_marginal_batch(thetas, data), 0.0
         )
         return lp + ll
 
-    def log_posterior_u_batch(
-        self,
-        us: jax.Array,
-        data: Dataset,
-        mesh=None,
-        mesh_axis: Optional[str] = None,
-    ) -> jax.Array:
+    def log_posterior_u_batch(self, us: jax.Array, data: Dataset) -> jax.Array:
         """Batched unconstrained-space log posterior: us (C, Pf) -> (C,).
 
         The bijector/prior work is per-chain tiny (P ~ 5-12 elementwise ops)
-        and stays vmapped; the evidence runs chains-minor. ``mesh``/
-        ``mesh_axis``: see `log_marginal_batch` (sharded fused-evidence
-        dispatch).
+        and stays vmapped; the evidence runs chains-minor.
         """
         u0 = self.bijector.inverse(
             jnp.asarray(self.initial_params, dtype=us.dtype)
@@ -636,10 +429,7 @@ class GPModel:
             ).at[:, jnp.asarray(self.free_idx)].set(us)
         thetas = jax.vmap(self.bijector.forward)(u_full)
         ldj = jax.vmap(self.bijector.log_det_jac)(u_full)
-        return (
-            self.log_posterior_batch(thetas, data, mesh=mesh, mesh_axis=mesh_axis)
-            + ldj
-        )
+        return self.log_posterior_batch(thetas, data) + ldj
 
     def log_posterior_u(self, u_free: jax.Array, data: Dataset) -> jax.Array:
         """Unconstrained-space log posterior = ll + prior + log|det J|.
@@ -729,7 +519,7 @@ class GPModel:
                 table,
             )
         if data.T is not None:
-            Ks_obs = Ksf @ data.T.T
+            Ks_obs = jnp.matmul(Ksf, data.T.T, precision=_HI)
         else:
             Ks_obs = Ksf
 
@@ -739,7 +529,7 @@ class GPModel:
                 self.mean, self._theta_mean(theta_full), Xstar_a, sid, table
             )
 
-        mean = mu_star + Ks_obs @ state.alpha
+        mean = mu_star + jnp.matmul(Ks_obs, state.alpha, precision=_HI)
 
         std = cov = None
         if return_std or return_cov:
@@ -759,13 +549,15 @@ class GPModel:
             V = jax.scipy.linalg.solve_triangular(
                 state.L, Ks_obs.T, lower=True
             )
-            cov = Kss - V.T @ V
+            cov = Kss - jnp.matmul(V.T, V, precision=_HI)
 
         if output_transform is not None:
             O = jnp.asarray(output_transform, dtype=mean.dtype)
-            mean = O @ mean
+            mean = jnp.matmul(O, mean, precision=_HI)
             if cov is not None:
-                cov = O @ cov @ O.T
+                cov = jnp.matmul(
+                    jnp.matmul(O, cov, precision=_HI), O.T, precision=_HI
+                )
         if (return_std or return_cov) and cov is not None:
             std = jnp.sqrt(jnp.clip(jnp.diagonal(cov), 0.0))
         return Prediction(
@@ -811,7 +603,7 @@ class GPModel:
         z = jax.random.normal(key, (m, int(num_samp)), dtype=mean.dtype)
         if method == "cholesky":
             L = evidence.chol_factor(cov, self.diag_factor)
-            draws = mean[:, None] + L @ z
+            draws = mean[:, None] + jnp.matmul(L, z, precision=_HI)
         elif method == "eig":
             w, V = jnp.linalg.eigh(cov)
             if num_eig is not None:
@@ -826,7 +618,9 @@ class GPModel:
                 signs = jnp.sign(V[idx, jnp.arange(V.shape[1])])
                 V = V * jnp.where(signs == 0, 1.0, signs)[None, :]
             w = jnp.clip(w, 0.0)
-            draws = mean[:, None] + V @ (jnp.sqrt(w)[:, None] * z)
+            draws = mean[:, None] + jnp.matmul(
+                V, jnp.sqrt(w)[:, None] * z, precision=_HI
+            )
         else:
             raise ValueError(f"unknown method {method!r}")
         return draws
@@ -1217,7 +1011,7 @@ class GaussianProcess:
             # E[cov] + cov of means
             dm = preds.mean - mean
             cov = jnp.mean(preds.cov, axis=0) + (
-                dm.T @ dm
+                jnp.matmul(dm.T, dm, precision=_HI)
             ) / preds.mean.shape[0]
             return mean, cov
         if return_std:

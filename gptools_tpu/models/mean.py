@@ -1,6 +1,6 @@
 """Parametric prior mean functions with derivative-order evaluation.
 
-TPU-native counterpart of ``gptools/mean.py`` (SURVEY.md section 2.1):
+Counterpart of ``gptools/mean.py`` (SURVEY.md section 2.1):
 ``MeanFunction``, ``ConstantMeanFunction``, ``LinearMeanFunction``, and the
 mtanh-style pedestal mean (``MtanhMeanFunction1d`` [MED naming confidence]).
 Mean functions share the kernel layer's hyperparameter plumbing (initial

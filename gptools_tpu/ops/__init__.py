@@ -1,6 +1,6 @@
 """Compute layer: kernel zoo, autodiff derivative blocks, covariance assembly
-(XLA and Pallas paths), evidence linear algebra, and TPU-friendly special
-functions.
+(generic and fused XLA paths), evidence linear algebra, and
+accelerator-friendly special functions.
 
 Counterpart of the reference's ``gptools/kernel/`` package plus the numeric
 parts of ``gptools/core.py`` (``compute_Kij``, ``compute_K_L_alpha_ll`` —

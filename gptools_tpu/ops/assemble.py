@@ -1,6 +1,6 @@
 """Covariance-matrix assembly from scalar kernels + derivative multi-indices.
 
-TPU-native counterpart of ``gptools/core.py :: GaussianProcess.compute_Kij``,
+Counterpart of ``gptools/core.py :: GaussianProcess.compute_Kij``,
 which tiled ``(Xi, Xj, ni, nj)`` index arrays and made one vectorized kernel
 call over all pairs (SURVEY.md section 3.1). Here each derivative block
 ``d^a d^b k`` is generated by autodiff (`gptools_tpu.ops.derivs`), evaluated
@@ -8,9 +8,9 @@ call over all pairs (SURVEY.md section 3.1). Here each derivative block
 one fused XLA elementwise kernel — no data-dependent control flow, static
 shapes, ready for ``vmap`` over hyperparameter batches (chains/particles).
 
-A Pallas fused builder for the flagship kernels lives in
-`gptools_tpu.ops.pallas_cov`; this module is the reference implementation the
-Pallas path is tested against, and the general path for arbitrary kernels.
+Hand-fused builders for the flagship kernels live in `gptools_tpu.ops.fused`;
+this module is the reference implementation they are tested against, and the
+general path for arbitrary kernels.
 """
 
 from __future__ import annotations

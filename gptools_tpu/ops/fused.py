@@ -1,5 +1,4 @@
-"""Fused covariance block math for the flagship kernels — one implementation
-shared by the plain-XLA (differentiable) path and the Pallas kernels.
+"""Fused covariance block math for the flagship kernels.
 
 Why this exists: the generic assembly (`gptools_tpu.ops.assemble`) evaluates
 each derivative block with its own autodiff tower, recomputing the
@@ -8,12 +7,11 @@ evaluates K and dK/dtheta hundreds of times per sample, so the covariance
 build is worth hand-fusing: the formulas below compute the shared
 subexpressions once and emit all four {value, slope} blocks in a single
 elementwise pass. Written in plain jnp they are fully differentiable (exact
-gradients for the samplers); the same functions are the bodies of the Pallas
-kernels in `gptools_tpu.ops.pallas_cov`, whose forward pass can then be used
-with this module's autodiff as the backward (custom_vjp).
+gradients for the samplers), and XLA fuses each build into one elementwise
+kernel.
 
 Correctness: pinned against the generic autodiff path to 1e-11 (f64) in
-tests/test_pallas.py and tests/test_fused.py.
+tests/test_fused.py.
 """
 
 from __future__ import annotations
@@ -132,8 +130,8 @@ def _gibbs_pair_blocks(sf, la, dla, lb, dlb, d):
 
 
 def gibbs_tanh_blocks(x_row, x_col, theta):
-    """Gibbs-tanh {value, slope} blocks (hand-derived; see module docstring
-    of `gptools_tpu.ops.pallas_cov` for the derivation)."""
+    """Gibbs-tanh {value, slope} blocks (hand-derived: the warp l(x), l'(x)
+    is evaluated once per point and shared by all four blocks)."""
     sf, l1, l2, lw, x0 = theta[0], theta[1], theta[2], theta[3], theta[4]
 
     def warp(x):
@@ -390,7 +388,7 @@ def warped_cov_fused_soa_sym(base_kind, input_warp, X, ids, thetaT):
 
 
 def classify_flagship(kernel):
-    """Classify a kernel for the fused/Pallas fast paths.
+    """Classify a kernel for the fused fast paths.
 
     Returns ``(kind, base_params, input_warp)`` with kind in
     {'se', 'gibbs_tanh', 'matern52'}, ``base_params`` the number of base-
@@ -481,17 +479,10 @@ def _order_ids(nid, multi_indices):
     raise ValueError(f"unsupported multi-index table {mi}")
 
 
-def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
-    """Fused K over one point set for a supported flagship kernel.
-
-    backend: 'fused' (plain XLA, differentiable) or 'pallas' (Pallas forward
-    with the fused path as custom-vjp backward; TPU only).
-    """
-    from gptools_tpu.ops.kernels import (
-        GibbsKernel,
-        SquaredExponentialKernel,
-        TanhWarp,
-    )
+def flagship_cov(kernel, theta, X, nid, multi_indices):
+    """Fused K over one point set for a supported flagship kernel (plain
+    XLA, differentiable)."""
+    from gptools_tpu.ops.kernels import GibbsKernel, TanhWarp
 
     # The Gibbs formulas below hard-code the TanhWarp length-scale profile.
     # `GPModel._latent_cov` only routes here when `fused_supported` says yes,
@@ -509,16 +500,6 @@ def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
     kind, _, input_warp = cls
     ids = _order_ids(nid, multi_indices)
     Xf = X.reshape(-1)
-    if backend == "pallas":
-        from gptools_tpu.ops import pallas_cov
-
-        # the grid-tiled Pallas cov twins exist for the flagship kinds only
-        # (they are the measured loser vs fused XLA anyway, BASELINE.md r1);
-        # other kinds fall through to the fused-XLA build
-        if type(kernel) is SquaredExponentialKernel:
-            return pallas_cov.se_cov_vjp(Xf, ids, theta)
-        if isinstance(kernel, GibbsKernel):
-            return pallas_cov.gibbs_tanh_cov_vjp(Xf, ids, theta)
     if input_warp is not None:
         return warped_cov_fused(kind, input_warp, Xf, ids, theta)
     builds = {

@@ -1,6 +1,6 @@
 """Covariance-function zoo with derivative support via autodiff.
 
-TPU-native counterpart of the reference package ``gptools/kernel/``
+Counterpart of the reference package ``gptools/kernel/``
 (SURVEY.md section 2.1):
 
 ===========================  =====================================================
@@ -473,7 +473,7 @@ def _matern_series_coeffs(p: int):
 class MaternKernel(Kernel):
     """Half-integer Matern kernel, ARD
     (``gptools/kernel/matern.py :: MaternKernel`` — the reference additionally
-    supports free real ``nu`` via Bessel-K chain rules; for real ``nu`` on TPU
+    supports free real ``nu`` via Bessel-K chain rules; for real ``nu``
     use `gptools_tpu.ops.special.bessel_kve`-based `MaternGeneralKernel`,
     half-integer ``nu`` uses the exact closed form below):
 

@@ -1,8 +1,8 @@
-"""TPU-friendly special functions, fully differentiable.
+"""Accelerator-friendly special functions, fully differentiable.
 
 The reference leaned on compiled CPU special functions
 (``scipy.special.kv`` for the Matern Bessel-K, ``scipy.stats`` beta CDF for
-input warps — SURVEY.md section 2.2) which have no TPU story and, where JAX
+input warps — SURVEY.md section 2.2) which have no accelerator story and, where JAX
 ports exist, often lack derivative rules in all arguments. Because
 hyperparameters of this engine (Matern ``nu``, BetaWarp ``a, b``) must be
 *sampled with gradients*, we need functions differentiable in every argument.
@@ -10,7 +10,7 @@ hyperparameters of this engine (Matern ``nu``, BetaWarp ``a, b``) must be
 Strategy: fixed-node double-exponential (tanh-sinh / exp-sinh) quadrature.
 The node/weight grids are static compile-time constants, the integrands are
 smooth elementwise expressions, so XLA sees plain fused vector math — ideal
-for the VPU — and autodiff simply differentiates under the integral sign
+for vector units — and autodiff simply differentiates under the integral sign
 (valid here: integrands are analytic in the parameters).
 """
 

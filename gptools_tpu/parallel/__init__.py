@@ -1,16 +1,16 @@
 """Parallel layer: device meshes, sharded chains/particles, collectives.
 
-TPU-native replacement for the reference's only parallelism mechanism —
+Replacement for the reference's only parallelism mechanism —
 single-node ``multiprocessing.Pool`` fan-outs (SURVEY.md sections 2.3-2.4):
 
 =================================  =======================================
 reference                           here
 =================================  =======================================
-Pool over MAP random starts         ``vmap`` on-chip; starts sharded over
+Pool over MAP random starts         ``vmap`` on-device; starts sharded over
 (``optimize_hyperparameters``)      the mesh for large sweeps
 emcee walkers + worker processes    chains axis of the vmapped NUTS/HMC
 (``sample_hyperparameter_post.``)   state sharded over the mesh; pooled
-                                    adaptation stats become psum over ICI
+                                    adaptation stats become all-reduces
 Pool over posterior samples         ``vmap`` + mesh sharding of the sample
 (``compute_from_MCMC``)             axis (batched Cholesky per shard)
 (no distributed backend at all)     ``jax.distributed`` + GSPMD collectives

@@ -2,18 +2,22 @@
 
 The reference has no distributed backend at all (SURVEY.md section 2.4 —
 single-node ``multiprocessing`` only). This module is the multi-host entry
-point of the rebuild: ``jax.distributed`` process bootstrap plus the 2-D
-(dcn, ici) mesh layout that keeps the per-iteration collective traffic
-(pooled adaptation scalars, SMC weight reductions) on ICI within a slice and
-touches DCN only for the tiny cross-host portion of the all-reduce.
+point of the rebuild: ``jax.distributed`` process bootstrap plus a 2-D
+(hosts, local GPUs) mesh. The GPUs of one host are joined all to all by
+NVLink, so the per-iteration collective traffic (pooled adaptation scalars,
+SMC weight reductions) reduces within a host first and crosses the network
+between hosts only for the tiny cross-host portion of the all-reduce.
 
-Usage on each host of a pod slice:
+Usage on each host:
 
     from gptools_tpu.parallel import distributed
-    distributed.initialize()                   # no-op in single-process runs
-    mesh = distributed.pod_mesh()              # ('dcn', 'ici') 2-D mesh
+    distributed.initialize("host0:1234", num_processes=2, process_id=rank)
+    mesh = distributed.pod_mesh()              # ('hosts', 'gpus') 2-D mesh
     sharding = distributed.chain_sharding_2d(mesh)
-    # shard the chain axis over all devices: chains = hosts x local devices
+    # shard the chain axis over all devices: chains = hosts x local GPUs
+
+On one host a 1-D mesh over its GPUs (`gptools_tpu.parallel.make_mesh`) is
+all the layout there is; no process group is needed.
 
 The samplers themselves are topology-agnostic: they consume a sharded
 (chains, P) state and reduce with ``jnp.mean``/``jnp.sum`` — GSPMD lowers
@@ -38,10 +42,10 @@ def initialize(
 ) -> None:
     """Initialize ``jax.distributed`` when running multi-process.
 
-    With no arguments this auto-detects the environment (TPU pod metadata /
-    cluster env vars, as jax.distributed.initialize does natively) and is a
-    NO-OP for single-process runs, so library code can call it
-    unconditionally.
+    With no arguments this initializes only when the environment names a
+    coordinator (``COORDINATOR_ADDRESS`` / ``JAX_COORDINATOR_ADDRESS``) and
+    is otherwise a NO-OP for single-process runs, so library code can call
+    it unconditionally.
     """
     # NOTE: must not touch the backend (jax.process_count / jax.devices)
     # before jax.distributed.initialize — backend init is one-shot and
@@ -56,12 +60,7 @@ def initialize(
         # cluster metadata; otherwise stay single-process
         import os
 
-        markers = (
-            "COORDINATOR_ADDRESS",
-            "JAX_COORDINATOR_ADDRESS",
-            "TPU_WORKER_HOSTNAMES",
-            "MEGASCALE_COORDINATOR_ADDRESS",
-        )
+        markers = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
         if not any(m in os.environ for m in markers):
             return
     try:
@@ -82,12 +81,12 @@ def is_multiprocess() -> bool:
     return jax.process_count() > 1
 
 
-def pod_mesh(axis_names=("dcn", "ici")) -> Mesh:
-    """2-D mesh: hosts (DCN) x local devices (ICI).
+def pod_mesh(axis_names=("hosts", "gpus")) -> Mesh:
+    """2-D mesh: hosts x local GPUs.
 
     Single-process: degenerates to (1, num_devices). Chains shard over BOTH
     axes (flattened), so the pooled-statistic all-reduce is hierarchical:
-    fast ICI reduction per host, then one scalar hop over DCN.
+    an NVLink reduction per host, then one scalar hop between hosts.
     """
     n_proc = jax.process_count()
     local = jax.local_device_count()

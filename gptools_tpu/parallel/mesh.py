@@ -2,19 +2,21 @@
 
 Design (SURVEY.md section 7.1 "replace multiprocessing with a mesh"): the
 sampler state's leading axis (chains for NUTS/HMC, particles for SMC) is laid
-out over a 1-D (or 2-D ici x dcn) ``jax.sharding.Mesh``. All per-chain
+out over a 1-D ``jax.sharding.Mesh`` (2-D hosts x GPUs across hosts,
+`gptools_tpu.parallel.distributed.pod_mesh`). All per-chain
 computation is embarrassingly parallel, so GSPMD partitions the vmapped
 transition automatically from the input sharding; the ONLY cross-device
 traffic is:
 
 - the pooled adaptation statistic (``jnp.mean`` over chains -> all-reduce
-  over ICI) once per iteration, a few bytes;
+  over NVLink) once per iteration, a few bytes;
 - SMC weight normalization + resampling gathers (particles are ~10 floats
   each at GP-hyperparameter dimensionality, so a full gather is cheap).
 
-Multi-host: call ``jax.distributed.initialize()`` before building the mesh;
-the same code runs unchanged — ``make_mesh(('dcn', 'ici'))`` maps chains
-over hosts x local devices with collectives riding ICI within a slice.
+The GPUs of one host are joined all to all by NVLink, so the mesh follows
+the algorithm alone: one chain axis, no torus shape. Multi-host: call
+``gptools_tpu.parallel.distributed.initialize`` before building the mesh;
+the same code runs unchanged over hosts x local GPUs.
 """
 
 from __future__ import annotations
@@ -160,7 +162,7 @@ def pt_step_sharded(
     ``mesh.axis_names[1]``. The HMC sweep is embarrassingly parallel over
     both axes; per-rung step-size pooling all-reduces over the chains axis
     only; and the replica-exchange ``jnp.roll`` over the temperature axis
-    lowers to nearest-neighbor ``ppermute`` traffic over ICI.
+    lowers to a ``ppermute`` between neighbouring devices.
 
     Returns ``(step_fn, init_state)`` where
     ``step_fn(u, key, eps, inv_mass, step_idx) -> (u', ll, swap_frac, accept)``.

@@ -1,6 +1,6 @@
 """Utility layer: hyperpriors, bijectors, chain diagnostics, checkpointing.
 
-TPU-native counterpart of the reference's ``gptools/utils.py`` (priors,
+Counterpart of the reference's ``gptools/utils.py`` (priors,
 combinatorics, sampler summaries — see SURVEY.md section 2.1). The
 combinatorial machinery (``incomplete_bell_poly``, ``generate_set_partitions``,
 ``fixed_poch``) lives in `gptools_tpu.utils.combinatorics` for API parity and

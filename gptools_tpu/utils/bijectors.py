@@ -3,7 +3,7 @@
 The reference (``gptools/core.py :: update_hyperparameters``) handles bounds by
 returning ``-inf`` log-likelihood when a proposal violates ``param_bounds``,
 which is fine for emcee's random-walk-ish ensemble moves but poisonous for
-gradient-based samplers (HMC/NUTS) and for ADVI. The TPU-native engine instead
+gradient-based samplers (HMC/NUTS) and for ADVI. This engine instead
 samples in an unconstrained space ``u`` and maps through a smooth bijector
 ``x = forward(u)`` chosen from the parameter bounds, with the exact
 ``log |det J|`` correction added to the log-density.

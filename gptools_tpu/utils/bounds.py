@@ -6,7 +6,7 @@ The reference's ``GaussianProcess`` exposed the concatenation of
 kernel + noise-kernel + mean hyperparameter bounds (and names, and values) as
 *views*: reading walks the underlying component lists, and writing mutates
 them in place, so ``gp.free_param_bounds[3] = (0, 1)`` updated the owning
-kernel. The TPU rebuild's jitted paths never touch these (parameters travel
+kernel. The rebuild's jitted paths never touch these (parameters travel
 as flat arrays; bounds become bijectors at model-build time —
 `gptools_tpu.utils.bijectors`), but the wrapper keeps the same host-side
 ergonomics for ported user code.

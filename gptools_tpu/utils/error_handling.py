@@ -5,7 +5,7 @@ reference defines ``GPArgumentError`` for bad user input and an
 impossible-hyperparameters error class whose only consumer converts it to a
 ``-inf`` log-likelihood so MCMC rejects instead of crashing.
 
-In the jitted TPU engine the -inf contract is structural — the evidence
+In the jitted engine the -inf contract is structural — the evidence
 (`gptools_tpu.ops.evidence.gaussian_loglik`) masks non-finite factorization
 results to -inf with no Python control flow — so `GPImpossibleParamsError`
 exists only for EAGER host-side use (e.g. validating a user-supplied theta

@@ -1,6 +1,6 @@
 """Hyperprior objects over (slices of) the flat hyperparameter vector.
 
-TPU-native counterpart of the reference's prior zoo in
+Counterpart of the reference's prior zoo in
 ``gptools/utils.py`` (``JointPrior``, ``ProductJointPrior``,
 ``UniformJointPrior``, ``IndependentJointPrior``, ``NormalJointPrior``,
 ``LogNormalJointPrior``, ``GammaJointPrior`` / ``GammaJointPriorAlt``,

@@ -2,7 +2,7 @@
 //
 // Role in the framework (SURVEY.md section 2.2): the reference delegated all
 // heavy host numerics to compiled libraries (LAPACK/Cephes via scipy); this
-// TPU-native rebuild keeps device compute in XLA/Pallas but gives the HOST
+// rebuild keeps device compute in XLA/Pallas but gives the HOST
 // side of the runtime a compiled core too. Post-processing checkpointed
 // chain archives (thousands of chains x long runs x many params) through
 // numpy/JAX round-trips is allocation-bound; this library computes the

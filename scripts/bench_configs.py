@@ -1,8 +1,7 @@
-"""Per-config performance recorder: BASELINE.json configs 1-5.
+"""Per-config performance recorder: BASELINE.json configs 1-3, on the GPU.
 
-VERDICT r4 missing #3: the headline bench measures config 4 only; this
-script records throughput for the other configs so "matching-or-beating on
-perf" is demonstrated per config, not on one posterior. Protocols:
+The headline bench measures config 4 only; this script records throughput
+for the other configs. Protocols:
 
   config 1  MAP wall (vmapped multi-start L-BFGS; compile and exec reported
             separately) + the same fit via scipy L-BFGS-B over the jitted
@@ -10,18 +9,16 @@ perf" is demonstrated per config, not on one posterior. Protocols:
             multiprocessing-SLSQP stand-in)
   config 2  gated ESS/s, smc_then_chees (SE + derivative observations)
   config 3  gated ESS/s, smc_then_chees (Matern-5/2 + BetaWarp + linear
-            mean — exercises the r5-widened fused evidence kernel on
-            hardware) + a fused-vs-XLA evidence-gradient microbench
+            mean)
   config 4  the headline bench (bench.py) — not re-measured here
-  config 5  the sharded pipeline — validated by dryrun_multichip /
-            tests/test_config5.py (multi-chip hardware unavailable)
+  config 5  the sharded pipeline — checked by ``chip_smoke.py --multi``
 
 Usage:
-  python scripts/bench_configs.py                 # device side
-  python scripts/bench_configs.py --cpu-baseline  # CPU reference stand-ins
+  python scripts/bench_configs.py                 # GPU side (fails without one)
+  JAX_PLATFORMS=cpu python scripts/bench_configs.py --cpu-baseline
   python scripts/bench_configs.py --configs 2 3
 
-Each result prints as one JSON line; paste into BASELINE.md.
+Each result prints as one JSON line.
 """
 
 import argparse
@@ -36,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 RHAT_GATE = 1.1
 DIVERGENCE_FRAC_GATE = 1e-3
+DEVICE = None  # device_record() of the GPU run
 
 
 def _emit(obj):
@@ -102,8 +100,7 @@ def bench_sampler_config(cfg_num, num_chains, num_warmup, num_samples,
         "runs": runs,
         "num_chains": num_chains,
         "num_samples": num_samples,
-        "device": str(jax.devices()[0]),
-        "pallas_evidence_active": model._pallas_evidence_fn(data) is not None,
+        "device": DEVICE,
     })
 
 
@@ -135,51 +132,8 @@ def bench_config1_map(repeats=3, random_starts=32):
         "compile_plus_first_s": round(compile_wall, 2),
         "random_starts": random_starts,
         "best_log_posterior": round(max([lp0, *lps]), 4),
-        "device": str(jax.devices()[0]),
+        "device": DEVICE,
     })
-
-
-def bench_config3_gradient_micro(num_chains=4096, iters=30, scan_len=8):
-    """Fused-Pallas vs XLA evidence gradient at a config-3 shape (the
-    'measured grad-ms' VERDICT r4 item-2 asks for)."""
-    import jax
-    import jax.numpy as jnp
-
-    from gptools_tpu.configs import config3_matern_mean_warp_hmc
-
-    prob = config3_matern_mean_warp_hmc()
-    model, data = prob.model, prob.data
-    us = jax.jit(jax.vmap(model.u_of_theta))(
-        model.hyperprior.sample(jax.random.PRNGKey(0), (num_chains,))
-    ).block_until_ready()
-
-    out = {"config": 3, "metric": "evidence_grad_ms", "chains": num_chains}
-    for backend in ("fused_pallas", "xla"):
-        model.evidence_backend = backend
-
-        def chained(u):
-            def body(carry, _):
-                lls, pull = jax.vjp(
-                    lambda q: model.log_posterior_u_batch(q, data), carry
-                )
-                (g,) = pull(jnp.ones_like(lls))
-                return carry + 0.0 * g, jnp.sum(lls)
-
-            return jax.lax.scan(body, u, None, length=scan_len)
-
-        jfn = jax.jit(chained)
-        t0 = time.perf_counter()
-        jax.block_until_ready(jfn(us))
-        compile_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            o = jfn(us)
-        jax.block_until_ready(o)
-        ms = (time.perf_counter() - t0) / iters / scan_len * 1e3
-        out[backend] = {"grad_ms": round(ms, 3), "compile_s": round(compile_s, 1)}
-    out["speedup"] = round(out["xla"]["grad_ms"] / out["fused_pallas"]["grad_ms"], 2)
-    model.evidence_backend = "auto"
-    _emit(out)
 
 
 def cpu_baseline_map(random_starts=8):
@@ -272,7 +226,8 @@ def main():
     if args.cpu_baseline:
         import jax
 
-        jax.config.update("jax_platforms", "cpu")
+        if jax.default_backend() != "cpu":
+            sys.exit("--cpu-baseline runs with JAX_PLATFORMS=cpu")
         if 1 in args.configs:
             cpu_baseline_map()
         for c in (2, 3):
@@ -280,6 +235,10 @@ def main():
                 cpu_baseline_sampler(c)
         return
 
+    from gptools_tpu.utils.device import device_record
+
+    global DEVICE
+    DEVICE = device_record()  # fails without a GPU
     if 1 in args.configs:
         bench_config1_map()
     for c in (2, 3):
@@ -287,8 +246,6 @@ def main():
             bench_sampler_config(
                 c, args.chains, args.warmup, args.samples
             )
-    if 3 in args.configs:
-        bench_config3_gradient_micro(num_chains=args.chains)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,17 @@
-"""f32-on-TPU posterior parity gate (VERDICT r1 item 6, SURVEY.md 7.3 #5).
+"""f32 posterior parity gate against committed float64 golden moments.
 
-The CPU test suite runs x64; the TPU bench runs f32 — this script closes the
-loop: config-4 (Gibbs-tanh profile fit, the bench problem) posterior moments
-from the f32 pipeline on the CURRENT default device are z-tested against
-committed golden moments from the CPU x64 oracle run.
+The CPU test suite runs x64; the GPU runs f32. This gate closes the loop:
+config-4 (Gibbs-tanh profile fit, the bench problem) posterior moments from
+an f32 run are z-tested against golden moments from the CPU x64 oracle run.
 
     python scripts/f32_parity.py --golden   # regenerate tests/golden_config4.json
                                             # (forces CPU + x64)
-    python scripts/f32_parity.py            # gate: f32 on default device vs golden
+    python scripts/f32_parity.py            # gate: f32 on the GPU vs golden
 
 Prints one JSON line {"ok": bool, "z": [...], ...}; exit code 1 on failure.
-The gate passes when every parameter's |mean_f32 - mean_x64| <= 4 combined
-MC standard errors (se = std/sqrt(ESS)) and stds agree within 15%.
+`golden_gate` is the rule, and ``chip_smoke.py`` calls it on the flagship
+run: every parameter's |mean_f32 - mean_x64| <= 4 combined MC standard
+errors (se = std/sqrt(ESS)) and stds agree within 15%.
 """
 
 import argparse
@@ -62,18 +62,43 @@ def run_pipeline():
     }
 
 
+def load_golden():
+    with open(GOLDEN_PATH) as f:
+        return json.load(f)
+
+
+def golden_gate(mean, std, ess, gold=None):
+    """z-test posterior moments (per parameter) against the golden run."""
+    gold = gold if gold is not None else load_golden()
+    m, s, e = (np.asarray(v, np.float64) for v in (mean, std, ess))
+    gm, gs, ge = (np.asarray(gold[k]) for k in ("mean", "std", "ess"))
+    se = np.sqrt(s**2 / e + gs**2 / ge)
+    z = (m - gm) / se
+    ok_mean = bool(np.all(np.abs(z) <= 4.0))
+    ok_std = bool(np.all(np.abs(s - gs) <= 0.15 * gs + 4.0 * se))
+    return {
+        "ok": ok_mean and ok_std,
+        "z": np.round(z, 2).tolist(),
+        "mean": np.round(m, 5).tolist(),
+        "golden_mean": np.round(gm, 5).tolist(),
+        "std_rel_err": np.round((s - gs) / gs, 4).tolist(),
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--golden", action="store_true", help="regenerate the x64 oracle")
-    ap.add_argument("--cpu-f32", action="store_true", help="gate on CPU in f32 (harness check)")
     args = ap.parse_args()
 
     import jax
 
-    if args.golden or args.cpu_f32:
-        jax.config.update("jax_platforms", "cpu")
     if args.golden:
+        jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
+    else:
+        from gptools_tpu.utils.device import require_gpu
+
+        require_gpu()
 
     out = run_pipeline()
     out["device"] = str(jax.devices()[0])
@@ -96,8 +121,7 @@ def main():
             )
         )
         sys.exit(2)
-    with open(GOLDEN_PATH) as f:
-        gold = json.load(f)
+    gold = load_golden()
     if gold.get("kwargs") != RUN_KWARGS or gold.get("seed") != SEED:
         print(
             json.dumps(
@@ -111,28 +135,18 @@ def main():
             )
         )
         sys.exit(2)
-    m, s, e = (np.asarray(out[k]) for k in ("mean", "std", "ess"))
-    gm, gs, ge = (np.asarray(gold[k]) for k in ("mean", "std", "ess"))
-    se = np.sqrt(s**2 / e + gs**2 / ge)
-    z = (m - gm) / se
-    ok_mean = bool(np.all(np.abs(z) <= 4.0))
-    ok_std = bool(np.all(np.abs(s - gs) <= 0.15 * gs + 4.0 * se))
-    ok = ok_mean and ok_std
+    gate = golden_gate(out["mean"], out["std"], out["ess"], gold)
     print(
         json.dumps(
             {
-                "ok": ok,
-                "z": np.round(z, 2).tolist(),
-                "mean": np.round(m, 5).tolist(),
-                "golden_mean": np.round(gm, 5).tolist(),
-                "std_rel_err": np.round((s - gs) / gs, 4).tolist(),
+                **gate,
                 "rhat_max": max(out["rhat"]),
                 "dtype": out["dtype"],
                 "device": out["device"],
             }
         )
     )
-    sys.exit(0 if ok else 1)
+    sys.exit(0 if gate["ok"] else 1)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 Separates COMPILE (first call) from RUN (steady-state call) for each jitted
 program in the smc_then_chees production pipeline at bench shapes, so
-bench-budget decisions (VERDICT r2 items 1 and 3) are driven by measurement:
+bench-budget decisions are driven by measurement:
 
     python scripts/profile_pipeline.py --chains 12288 --warmup 75
 

@@ -39,8 +39,7 @@ def main():
                     help="sweep a BASELINE config's posterior instead of "
                     "the flagship bench problem (e.g. 2 for the SE + "
                     "derivative posterior — a differently-shaped target "
-                    "for the elasticity-generalization question, VERDICT "
-                    "r4 weak #6)")
+                    "for the elasticity-generalization question)")
     args = ap.parse_args()
 
     import jax

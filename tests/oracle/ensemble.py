@@ -2,7 +2,7 @@
 a faithful numpy stand-in for the emcee EnsembleSampler the reference drives
 in ``gptools/core.py :: sample_hyperparameter_posterior`` (SURVEY.md
 section 3.2). emcee is not installed in this environment (SURVEY.md section
-0), so parity of the TPU engine's posteriors is judged against this
+0), so parity of the engine's posteriors is judged against this
 implementation of the same algorithm; it matches emcee's default moves
 (stretch, a=2, parallel two-half update).
 """

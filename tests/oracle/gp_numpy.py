@@ -76,6 +76,17 @@ def build_K(X, n, kernel_fn):
     return K
 
 
+def engine_jitter(Kn, err_y, eps, diag_factor=1e2):
+    """The diagonal jitter the engine adds to the noisy covariance ``Kn``
+    (leading batch axes allowed): ``diag_factor * eps * max(mean diag, 1)``
+    less the smallest noise variance ``min(err_y**2)`` already on the
+    diagonal, and never negative. Both sides of a comparison must factor the
+    same matrix, so the oracle applies the engine's numerical convention."""
+    d = np.diagonal(Kn, axis1=-2, axis2=-1).mean(axis=-1)
+    want = diag_factor * eps * np.maximum(d, 1.0)
+    return np.maximum(want - np.min(np.asarray(err_y) ** 2), 0.0)
+
+
 def log_marginal(K, y, err_y, jitter=0.0):
     """Dense-Cholesky log marginal likelihood, numpy/LAPACK
     (the role scipy.linalg.cholesky plays in the reference's
@@ -110,3 +121,53 @@ def se_predict(X, y, err_y, n, Xstar, nstar, sigma_f, ell, jitter=0.0):
     mean = Ks @ Ki @ np.asarray(y)
     cov = Kss - Ks @ Ki @ Ks.T
     return mean, cov
+
+
+def gibbs_block_cs(x1, x2, n1, n2, theta, h=1e-5):
+    """Gibbs derivative blocks by complex-step differentiation in x1 (exact
+    to rounding for first derivatives) and a central difference in x2 for
+    the slope-slope block. Broadcasts over array inputs and parameters."""
+
+    def f(a, b):
+        return gibbs_value(a, b, *theta)
+
+    cs = 1e-30
+    if n1 == 0 and n2 == 0:
+        return f(x1, x2)
+    if n1 == 1 and n2 == 0:
+        return np.imag(f(x1 + 1j * cs, x2)) / cs
+    if n1 == 0 and n2 == 1:
+        return np.imag(f(x1, x2 + 1j * cs)) / cs
+    if n1 == 1 and n2 == 1:
+        return (
+            np.imag(f(x1 + 1j * cs, x2 + h)) - np.imag(f(x1 + 1j * cs, x2 - h))
+        ) / (2 * h * cs)
+    raise NotImplementedError
+
+
+def matern52_value(x1, x2, sigma_f, ell):
+    """Matern-5/2 covariance sigma_f^2 (1 + s + s^2/3) e^{-s},
+    s = sqrt(5) |x1 - x2| / ell."""
+    s = np.sqrt(5.0) * np.abs(x1 - x2) / ell
+    return sigma_f**2 * (1.0 + s + s * s / 3.0) * np.exp(-s)
+
+
+def beta_warp(x, a, b):
+    """Beta-CDF input warp: the regularized incomplete beta I_x(a, b)."""
+    from scipy.special import betainc
+
+    return betainc(a, b, x)
+
+
+def block_matrix(X1, n1, X2, n2, block_fn):
+    """Covariance over all pairs from a block function ``block_fn(x1, x2,
+    p, q)`` that evaluates one derivative block (orders p, q) on broadcast
+    arrays; leading batch axes of the parameters carry through."""
+    X1, X2 = np.asarray(X1, float), np.asarray(X2, float)
+    n1, n2 = np.asarray(n1), np.asarray(n2)
+    K = 0.0
+    for p in np.unique(n1):
+        for q in np.unique(n2):
+            mask = (n1[:, None] == p) & (n2[None, :] == q)
+            K = np.where(mask, block_fn(X1[:, None], X2[None, :], int(p), int(q)), K)
+    return K

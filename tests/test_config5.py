@@ -1,4 +1,4 @@
-"""BASELINE config 5 end to end, as written (VERDICT.md r1 item 5).
+"""BASELINE config 5 end to end, as written.
 
 1024 chains sharded over the 8-virtual-device CPU mesh through the full
 `smc_then_chees` pipeline (SMC particles AND sampler chains laid out over the
@@ -33,8 +33,8 @@ def _moments(res):
 
 
 def test_config5_sharded_pipeline_reduced(key):
-    """The as-written sharded-pipeline path at a nightly-safe shape (VERDICT
-    r4 weak #5): 256 chains / 50 warmup / 100 samples through the identical
+    """The as-written sharded-pipeline path at a nightly-safe shape:
+    256 chains / 50 warmup / 100 samples through the identical
     code path (mesh-sharded SMC + whitened ChEES with pooled adaptation,
     line-integral observation), moment-z-tested against the unsharded run.
     The full 1024-chain spec lives in tests/test_zz_config5_full.py (slow,

@@ -1,9 +1,9 @@
 """Chains-minor batched evidence path: value/gradient equality with the
 vmapped per-chain path, -inf contract, and model-level batched posteriors.
 
-This is the round-3 sampler hot path (VERDICT r2 item 3): same math as
-``vmap(loglik)`` but with the chain axis minormost so no (N, N) tile padding
-is paid per chain on TPU.
+This is the XLA sampler hot path: same math as ``vmap(loglik)`` but with
+the chain axis minormost, so every step of the rolled loops is a
+contiguous vector op over chains.
 """
 
 import jax
@@ -70,6 +70,40 @@ def test_loglik_b_neg_inf_contract(rng):
     assert np.all(np.asarray(gK)[:, :, 2] == 0.0)
     assert np.all(np.asarray(gr)[:, 2] == 0.0)
     assert np.isfinite(np.asarray(gK)[:, :, [0, 1, 3]]).all()
+
+
+@pytest.mark.parametrize("floor", [0.0, 0.1, 1e3])
+def test_jitter_floor_value_and_gradient(rng, floor):
+    """The jitter tops the diagonal up to ``diag_factor * eps * max(mean
+    diag, 1)`` past the noise variance ``floor`` already on it (nothing when
+    the noise covers it), and both analytic VJPs include its K-dependence."""
+    n, c, df = 6, 3, 1e14  # df * eps64 * scale ~ 0.3: a visible jitter
+    K = _spd_batch(rng, n, c)
+    r = jnp.asarray(rng.standard_normal((c, n)))
+    A = rng.standard_normal((c, n, n))
+    D = jnp.asarray(A + np.swapaxes(A, 1, 2))  # symmetric directions
+    scale = np.asarray(jnp.mean(jnp.diagonal(K, axis1=1, axis2=2), axis=1))
+    want = np.maximum(df * np.finfo(np.float64).eps * scale - floor, 0.0)
+    Kj = jax.vmap(lambda k: evidence.add_jitter(k, df, floor))(K)
+    np.testing.assert_allclose(
+        np.asarray(jnp.diagonal(Kj - K, axis1=1, axis2=2)),
+        np.broadcast_to(want[:, None], (c, n)), rtol=1e-12,
+    )
+    gK = jax.vmap(jax.grad(lambda k, v: evidence.loglik(k, v, df, floor)))(K, r)
+    gK_b = jax.grad(
+        lambda k: jnp.sum(evidence.loglik_b(k, r.T, df, floor))
+    )(jnp.moveaxis(K, 0, -1))
+    for i in range(c):
+        # forward-mode through the plain factorization is the reference
+        _, t_ref = jax.jvp(
+            lambda k: evidence.gaussian_loglik(k, r[i], df, floor).ll,
+            (K[i],), (D[i],),
+        )
+        np.testing.assert_allclose(float(jnp.sum(gK[i] * D[i])), float(t_ref),
+                                   rtol=1e-8)
+        np.testing.assert_allclose(
+            float(jnp.sum(gK_b[:, :, i] * D[i])), float(t_ref), rtol=1e-8
+        )
 
 
 def _problems(rng):

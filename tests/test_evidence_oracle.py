@@ -202,7 +202,7 @@ def test_draw_sample_moments(rng, key):
 
 @pytest.mark.slow
 def test_f32_evidence_close_to_f64(rng):
-    """TPU numerics guard (SURVEY.md section 7.1 note): the f32 evidence with
+    """f32 numerics guard (SURVEY.md section 7.1 note): the f32 evidence with
     relative jitter must track the f64 value on the flagship-style problem."""
     data = _se_dataset(rng)
     model = GPModel(SquaredExponentialKernel())  # default diag_factor
@@ -222,9 +222,9 @@ def test_f32_evidence_close_to_f64(rng):
 
 @pytest.mark.slow
 def test_small_cholesky_matches_xla(rng):
-    """Unrolled static-N Cholesky/solves == XLA's, values and gradients
-    (the TPU hot-path replacement: XLA's batched cholesky of tiny matrices
-    dominated the evidence cost — BASELINE.md)."""
+    """Small-N Cholesky/solve loops == XLA's, values and gradients
+    (the hot-path replacement for XLA's batched cholesky of tiny
+    matrices)."""
     from gptools_tpu.ops.evidence import (
         small_cholesky,
         small_solve_lower,

@@ -137,10 +137,9 @@ def test_batched_marginal_symmetric_matches_per_chain(rng):
 
 
 def test_non_tanh_gibbs_rejected(rng):
-    """VERDICT r2 weak 3: the fused/pallas flagship builders hard-code the
-    TanhWarp formulas; a direct call with another Gibbs warp must raise, not
-    silently compute TanhWarp covariances."""
-    from gptools_tpu.ops import pallas_cov
+    """The fused flagship builders hard-code the TanhWarp formulas; a direct
+    call with another Gibbs warp must raise, not silently compute TanhWarp
+    covariances."""
     from gptools_tpu.ops.kernels import GibbsKernel1dGauss
 
     data = _data(rng)
@@ -149,12 +148,9 @@ def test_non_tanh_gibbs_rejected(rng):
     with pytest.raises(ValueError, match="TanhWarp"):
         fused.flagship_cov(kern, theta, data.Xf, data.nid, data.multi_indices)
     with pytest.raises(ValueError, match="TanhWarp"):
-        fused.flagship_cov(
-            kern, theta, data.Xf, data.nid, data.multi_indices,
-            backend="pallas",
+        fused.flagship_cov_soa(
+            kern, theta[:, None], data.Xf, data.nid, data.multi_indices
         )
-    with pytest.raises(ValueError, match="TanhWarp"):
-        pallas_cov.cov_matrix_flagship(kern, theta, data, interpret=True)
     # and the model-level dispatch must fall back to the generic path
     assert not fused.fused_supported(kern, data.multi_indices, data.num_dim)
     m = GPModel(kern, cov_backend="fused", diag_factor=0.0)
@@ -171,7 +167,7 @@ def test_non_tanh_gibbs_rejected(rng):
     ],
 )
 def test_widened_fused_matches_generic(rng, mk_kern, P):
-    """VERDICT r4 missing #2: Matern-5/2 and input-warped (BetaWarp /
+    """Matern-5/2 and input-warped (BetaWarp /
     LinearWarp) kernels get the fused per-chain AND chains-minor builders;
     values (incl. derivative blocks chain-ruled through the warp) must match
     the generic autodiff assembly."""
@@ -187,7 +183,7 @@ def test_widened_fused_matches_generic(rng, mk_kern, P):
     from gptools_tpu.ops import assemble
 
     K_gen = assemble.cov_matrix(kern, theta, Xf, nidj, Xf, nidj, mis)
-    K_fus = fused.flagship_cov(kern, theta, Xf, nidj, mis, backend="fused")
+    K_fus = fused.flagship_cov(kern, theta, Xf, nidj, mis)
     # generic path differentiates the quadrature betainc for the warp slope;
     # the fused path uses the closed-form beta pdf — agreement to ~1e-12
     np.testing.assert_allclose(

@@ -273,8 +273,7 @@ def test_chain_rule_kernel_matches_se():
 def test_matern_general_derivative_blocks_near_coincidence():
     """(0,1)/(1,1) blocks of the free-nu Matern vs finite differences and the
     analytic coincidence limit, INCLUDING the near-coincident band that the
-    r1 implementation got wrong (VERDICT.md r1 item 8: the exact-Bessel
-    branch produced O(1e4) garbage for u in (1e-8, 1e-4) and the small-u
+    first implementation got wrong (the exact-Bessel branch produced O(1e4) garbage for u in (1e-8, 1e-4) and the small-u
     guard clamped nu-1 at 0.25, breaking the nu < 1.25 limit)."""
     kg = K.MaternGeneralKernel()
 
@@ -375,7 +374,7 @@ def test_matern_general_dll_dnu_through_evidence():
 
 
 def test_matern_general_integer_nudge_bias():
-    """VERDICT r2 weak 6: the integer-nu nudge (|nu - round(nu)| < 1e-6 is
+    """The integer-nu nudge (|nu - round(nu)| < 1e-6 is
     moved to round(nu) +- 1e-6 inside the series branch) must induce only an
     O(1e-6)-relative VALUE bias. Check: shape(u, nu) across nu = 2 +- {5,2,0}
     e-6 lies on a line (the true shape is analytic in nu across integers),
@@ -435,7 +434,7 @@ def test_matern_general_integer_nudge_bias():
 
 
 def test_matern_general_deriv_obs_nu_support_warning():
-    """VERDICT r2 item 8: a free-nu Matern model whose nu prior/bounds admit
+    """A free-nu Matern model whose nu prior/bounds admit
     nu <= 1 must hard-warn when evaluated on derivative observations (the
     (1,1) block diverges at coincidence for nu <= 1); a nu-safe prior must
     not warn."""

@@ -92,8 +92,7 @@ def _tiny_gp():
 
 def test_sharded_smc_runs_sharded(key):
     """`sharded_smc` must actually lay the particle state over the mesh
-    (VERDICT.md r1 weak #3: it used to silently ignore its mesh argument)
-    and agree with the unsharded run on posterior moments."""
+    (it used to silently ignore its mesh argument) and agree with the unsharded run on posterior moments."""
     from gptools_tpu.infer import pt as _pt
     from gptools_tpu.infer import smc as _smc
     from gptools_tpu.parallel.mesh import sharded_smc

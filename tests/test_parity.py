@@ -1,4 +1,4 @@
-"""Posterior-moment parity: TPU-engine samplers vs the reference pipeline
+"""Posterior-moment parity: engine samplers vs the reference pipeline
 stand-in (numpy GP oracle + affine-invariant ensemble sampler).
 
 This is the acceptance criterion of BASELINE.json: hyperparameter posterior
@@ -151,7 +151,7 @@ def test_hmc_parity_matern_warp_mean(rng, key):
 
 @pytest.mark.slow
 def test_2d_ard_mixed_partial_end_to_end(rng, key):
-    """VERDICT r2 item 9: the reference's derivative machinery is
+    """The reference's derivative machinery is
     dimension-generic (``gptools/kernel/core.py :: Kernel.__call__`` takes
     multi-index derivative orders); pin the 2-D path end to end — 2-D ARD SE
     with value + d/dx1 observations through evidence (FD-pinned gradient) ->
@@ -216,7 +216,7 @@ def test_2d_ard_mixed_partial_end_to_end(rng, key):
 
 @pytest.mark.slow
 def test_nuts_parity_matern_free_nu(rng, key):
-    """VERDICT r4 missing #4 / SURVEY section 7.3 #6: a posterior over the
+    """SURVEY section 7.3 #6: a posterior over the
     Matern smoothness nu itself, sampled end-to-end (the reference's
     headline free-nu Matern feature ran scipy.special.kv under emcee;
     here the differentiable-quadrature Bessel-K kernel under NUTS), with

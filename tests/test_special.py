@@ -1,5 +1,5 @@
 """Quadrature special functions vs scipy oracles, including parameter
-derivatives (the capability scipy/CPU lacked a TPU story for)."""
+derivatives (the capability scipy/CPU lacked an accelerator story for)."""
 
 import jax
 import jax.numpy as jnp
